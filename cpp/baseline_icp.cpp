@@ -5,7 +5,7 @@
 // 6-DoF GN, icp_registration.cpp AlignP2Plane path), used by bench.py as the
 // measured "C++ CPU baseline" that BASELINE.md requires (the reference
 // itself cannot be built here: it needs ROS1/PCL/Sophus). Same workload,
-// same iteration budget and stopping rule as the TPU engine, single thread
+// same iteration budget and stopping rule as the JAX engine, single thread
 // (the reference's hot loop is single-threaded, SURVEY.md section 2).
 //
 // Usage: baseline_icp <data.bin> <repeats>

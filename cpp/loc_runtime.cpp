@@ -1,10 +1,10 @@
-// loc_runtime: native host-side runtime for the TPU SLAM engine.
+// loc_runtime: native host-side runtime for the SLAM engine.
 //
 // The reference implements its I/O runtime in C++ as ROS subscriber threads
 // feeding mutexed deques plus a measurement synchronizer
 // (/root/reference/LocUtils/src/subscriber/cloud_subscriber.cpp:7-157,
 //  /root/reference/LocUtils/src/model/sync/measure_sync.cpp:14-210).
-// The TPU engine replays logs offline, but the host-side work is the same
+// The engine replays logs offline, but the host-side work is the same
 // and sits on the critical path between storage and the device: vendor
 // point conversion (per-point time normalization, ring handling, min-range
 // culling), packing variable-length scans into the fixed-capacity padded

@@ -1,6 +1,6 @@
 """Application layer: runnable offline pipelines.
 
-TPU-native rebuild of the reference's `slam_demo` package — the ROS nodes
+Rebuild of the reference's `slam_demo` package — the ROS nodes
 `lio_mapping_node` / `lio_matching_node` (/root/reference/slam_demo/src/
 apps/*.cpp) become CLI replay drivers over the npz log format
 (loc_lib_tpu.io.logdir):

@@ -23,6 +23,7 @@ from ..io.replay import EnuConverter
 from ..ops.pointcloud import PointCloud
 from ..pipeline import lio as lio_mod
 from ..utils.timing import StageTimer
+from ..utils import compile_cache
 
 
 def run_mapping(log: logdir.SensorLog, opts: lio_mod.LioOptions,
@@ -152,6 +153,7 @@ def main(argv=None):
                          "mesh 'mp' slices (matcher becomes ndt_inc; the "
                          "mapping working set scales past one device)")
     args = ap.parse_args(argv)
+    compile_cache.enable()
 
     if args.demo:
         log = logdir.make_demo_log(num_frames=args.demo_frames)

@@ -22,6 +22,7 @@ from ..io.replay import EnuConverter
 from ..ops.pointcloud import PointCloud
 from ..pipeline import loc as loc_mod
 from ..utils.timing import StageTimer
+from ..utils import compile_cache
 
 
 def run_matching(log: logdir.SensorLog, global_map_xyz: np.ndarray,
@@ -58,7 +59,7 @@ def run_matching(log: logdir.SensorLog, global_map_xyz: np.ndarray,
     engine.set_init_pose(init_pose[:3, :3], init_pose[:3, 3])
 
     timer = StageTimer()
-    stamps = []
+    stamps, frame_idxs = [], []
     for mg in log.measures(imu_capacity=64):
         scan = PointCloud(xyz=jnp.asarray(log.scan_xyz[mg.scan_index]),
                           mask=jnp.asarray(log.scan_mask[mg.scan_index]))
@@ -69,6 +70,7 @@ def run_matching(log: logdir.SensorLog, global_map_xyz: np.ndarray,
             engine.update_measure(scan, mg.imu_gyro, mg.imu_acce,
                                   mg.imu_stamp, mg.imu_valid)
         stamps.append(mg.scan_stamp)
+        frame_idxs.append(mg.scan_index)
 
     poses = np.stack(engine.poses) if engine.poses else np.zeros((0, 4, 4))
     trajectory.save_kitti(os.path.join(out_dir, "trajectory_kitti.txt"), poses)
@@ -77,7 +79,8 @@ def run_matching(log: logdir.SensorLog, global_map_xyz: np.ndarray,
     report = {"frames": len(poses), "stage_ms": timer.report()}
     if log.gt_poses is not None and len(poses):
         from ..eval.metrics import ate
-        report["ate_rmse_m"] = float(ate(poses, log.gt_poses[: len(poses)]).rmse)
+        report["ate_rmse_m"] = float(
+            ate(poses, log.gt_poses[np.asarray(frame_idxs)]).rmse)
     with open(os.path.join(out_dir, "report.json"), "w") as f:
         json.dump(report, f, indent=1)
     return report
@@ -99,14 +102,14 @@ def main(argv=None):
                     help="per-shard point budget (default: "
                          "2*local_map_capacity/mp)")
     args = ap.parse_args(argv)
+    compile_cache.enable()
 
     init_pose = None
     if args.demo:
         from ..io import synthetic
-        log = logdir.make_demo_log(num_frames=args.demo_frames, with_imu=False)
-        world = synthetic.make_world(num_points=120000, extent=80.0, seed=0)
-        gmap = world
-        init_pose = log.gt_poses[0]
+        log = logdir.make_demo_log(num_frames=args.demo_frames)
+        gmap = synthetic.make_world(num_points=120000, extent=80.0, seed=0)
+        init_pose = log.gt_poses[next(iter(log.measures())).scan_index]
     else:
         if not (args.log and args.map):
             ap.error("--log and --map, or --demo, required")

@@ -19,6 +19,7 @@ from ..io import logdir, trajectory
 from ..ops.pointcloud import PointCloud
 from ..pipeline import lio as lio_mod, slam3d
 from ..utils.timing import StageTimer
+from ..utils import compile_cache
 
 
 def run_slam(log: logdir.SensorLog, opts: slam3d.Slam3dOptions,
@@ -28,7 +29,7 @@ def run_slam(log: logdir.SensorLog, opts: slam3d.Slam3dOptions,
 
     engine = slam3d.Slam3d(opts)
     timer = StageTimer()
-    stamps, odom_poses = [], []
+    stamps, odom_poses, frame_idxs = [], [], []
     for mg in log.measures(imu_capacity=64):
         if opts.lio.with_eskf and not engine.imu_inited and log.imu is not None:
             sel = log.imu.stamps <= mg.scan_stamp
@@ -46,6 +47,7 @@ def run_slam(log: logdir.SensorLog, opts: slam3d.Slam3dOptions,
                                      jnp.asarray(mg.imu_stamp),
                                      jnp.asarray(mg.imu_valid))
         stamps.append(mg.scan_stamp)
+        frame_idxs.append(mg.scan_index)
         T = np.eye(4, dtype=np.float32)
         T[:3, :3] = np.asarray(out.R)
         T[:3, 3] = np.asarray(out.t)
@@ -81,6 +83,11 @@ def run_slam(log: logdir.SensorLog, opts: slam3d.Slam3dOptions,
         if engine.loop_inliers is not None else 0,
         "map_points": int(len(gmap)), "stage_ms": timer.report(),
     }
+    # odometry ATE vs ground truth when the log carries it
+    if log.gt_poses is not None and len(odom) >= 3:
+        from ..eval import metrics
+        report["ate_rmse_m"] = round(
+            metrics.ate(odom, log.gt_poses[np.asarray(frame_idxs)]).rmse, 4)
     with open(os.path.join(out_dir, "report.json"), "w") as f:
         json.dump(report, f, indent=1)
     return report
@@ -93,6 +100,7 @@ def main(argv=None):
     ap.add_argument("--demo-frames", type=int, default=60)
     ap.add_argument("--out", default="./slam_out")
     args = ap.parse_args(argv)
+    compile_cache.enable()
 
     if args.demo:
         log = logdir.make_demo_log(num_frames=args.demo_frames)

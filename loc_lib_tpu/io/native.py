@@ -2,7 +2,7 @@
 
 The reference's I/O runtime is C++ (ROS subscriber threads + measurement
 sync, /root/reference/LocUtils/src/subscriber/cloud_subscriber.cpp:7-157,
-src/model/sync/measure_sync.cpp:14-210). The TPU engine keeps that layer
+src/model/sync/measure_sync.cpp:14-210). The engine keeps that layer
 native: vendor point conversion, fixed-capacity packing, and per-scan IMU
 grouping run as multithreaded C++ so the Python driver only ships finished
 buffers to the device. Everything here degrades gracefully — if no C++

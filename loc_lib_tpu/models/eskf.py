@@ -1,6 +1,6 @@
 """18-dim error-state Kalman filter, static IMU initializer, IMU integrator.
 
-TPU-native rebuild of the reference ESKF
+Rebuild of the reference ESKF
 (/root/reference/LocUtils/include/LocUtils/model/eskf/eskf.hpp), the static
 initializer (model/static_init/static_imu_init.cpp) and the dead-reckoning
 integrator (model/integration/imu_integration.cpp).

@@ -1,13 +1,12 @@
 """ICP scan matching: point-to-point / point-to-line / point-to-plane.
 
-TPU-native rebuild of the reference `IcpRegistration`
+Rebuild of the reference `IcpRegistration`
 (/root/reference/LocUtils/src/model/matching/3d/icp/icp_registration.cpp).
 The per-point inner loop (transform -> kNN -> local fit -> Jacobian ->
 6x6 accumulate, icp_registration.cpp:161-213) becomes one batched program:
 all N source points are transformed, matched against the voxel hash grid,
 line/plane-fit, and their Jacobians assembled in parallel; the H/b reduction
-is a single (6,3N)x(3N,6) matmul that XLA places on the MXU. The outer
-Gauss-Newton loop is a `lax.while_loop` with the reference's stopping rule
+is a single (6,3N)x(3N,6) matmul. The outer Gauss-Newton loop is a `lax.while_loop` with the reference's stopping rule
 (|dx| < eps, icp_registration.cpp:371-375) and degeneracy guards
 (effective_num >= min_effective_pts, icp_registration.cpp:94-101).
 
@@ -34,8 +33,7 @@ import jax
 import jax.numpy as jnp
 
 from ..ops.pointcloud import PointCloud
-from ..ops import voxel
-from ..ops import pallas_kernels
+from ..ops import linearize, voxel
 from ..utils import lie, mathx
 
 
@@ -43,12 +41,11 @@ from ..utils import lie, mathx
 class IcpOptions:
     """Mirror of IcpOptions (icp_registration.hpp:22-39).
 
-    method="p2plane_vox" is the TPU-first production P2Plane path: target-side
+    method="p2plane_vox" is the production P2Plane path: target-side
     geometry (a plane per voxel, neighbor-merged Gaussians, VGICP-style) is
     precomputed ONCE at set_target, so each GN iteration is one O(1) dense
-    voxel lookup + plane evaluation per point, fused into a single Pallas
-    kernel — instead of re-running 5-NN search + eigen plane fit per point per
-    iteration (what the reference does per kd-tree probe,
+    voxel lookup + plane evaluation per point (ops/linearize) — instead of
+    re-running 5-NN search + eigen plane fit per point per iteration (what the reference does per kd-tree probe,
     icp_registration.cpp:161-213, and what method="p2plane" replicates for
     oracle parity). The reference's own NDT amortizes target geometry exactly
     this way (ndt_registration.cpp:87-148 build vs :262-372 align).
@@ -67,7 +64,7 @@ class IcpOptions:
     max_line_distance: float = 0.5
     min_effective_pts: int = 10
     eps: float = 1e-2
-    # TPU search structure (replaces the kd-tree): cell size of the hash grid
+    # Search structure (replaces the kd-tree): cell size of the hash grid
     # and how many candidate points to keep per cell.
     grid_leaf: float = 1.0
     bucket_size: int = 8
@@ -83,16 +80,13 @@ class IcpOptions:
     dense_dims: tuple = (256, 256, 64)
     # p2plane_vox GN refinement: re-elect correspondences only for the first
     # k iterations, then FREEZE the (plane, weight) assignment and iterate
-    # the pure fused linearization (the plane-distance gate stays live);
+    # the linearization alone (the plane-distance gate stays live);
     # any iteration whose pose has moved more than elect_dx_threshold
     # (translation metres; rotation via angle * elect_rot_scale) since the
-    # last election re-elects. MEASURED VERDICT — leave this at 0 in any
-    # MAPPING/LOCALIZATION feedback loop: single-match microbenchmarks show
-    # up to 1.6x per-match speedup at equal-or-better pose error (the
-    # election gather is ~60% of an iteration, PROFILE.md), but inside the
-    # LIO pipeline the slight per-frame bias of frozen refinement bakes
-    # into the map and ATE degrades 6x (0.27 vs 0.044 on the bench log)
-    # with no net throughput gain; Loc with 0.3 m transients diverges
+    # last election re-elects. Leave this at 0 in any MAPPING/LOCALIZATION
+    # feedback loop: inside the LIO pipeline the slight per-frame bias of
+    # frozen refinement bakes into the map and ATE degrades 6x (0.27 vs
+    # 0.044 m on the bench log); Loc with 0.3 m transients diverges
     # outright under looser gating. Opt-in for one-shot registrations only.
     # 0 = re-elect every iteration (reference-faithful re-search,
     # icp_registration.cpp:170 per-iteration kNN).
@@ -102,7 +96,7 @@ class IcpOptions:
     # Accumulation-gate warm-up (p2plane_vox family, opt-in): run the
     # first k GN iterations with gate = max_plane_distance *
     # gate_warmup_scale, then the production gate; convergence cannot
-    # fire during warm-up iterations. MEASURED VERDICT (round-5 diagnosis
+    # fire during warm-up iterations. MEASURED (round-5 diagnosis
     # of the round-4 9.3 cm batched-converged tail): warm-up is NOT the
     # fix for that tail — the tail was a target-DENSITY misconfiguration
     # (grid_leaf=1.0/plane_min_pts=5 on a sparse 8192-pt/70 m keyframe
@@ -140,7 +134,7 @@ class IcpTarget(NamedTuple):
     dense: Optional[voxel.DenseIndex] = None
     # p2line_vox extras: rows [mu(3), W(9 row-major), valid] where
     # W W^T = I - d d^T (the perpendicular projector of the voxel's line
-    # direction d) — the generalized-Gaussian form the fused kernel consumes.
+    # direction d) — the generalized-Gaussian form linearize.ndt consumes.
     line_packed: Optional[jax.Array] = None  # (V, 13)
     line_dir: Optional[jax.Array] = None     # (V, 3) kept for tests
     # p2plane_vox_oct extras: correspondences PRE-ELECTED per (voxel, octant)
@@ -197,9 +191,9 @@ def _build_line_table(pc: PointCloud, grid: voxel.HashGrid, opts: IcpOptions,
     eigenvector; a voxel carries a line only when that direction dominates
     the cross-section (line_ratio) with >= plane_min_pts support (the
     reference's P2Line requires 5 NN + a cross-residual gate,
-    icp_registration.cpp:115-128). The residual machinery is the fused NDT
-    kernel with per-voxel information I - d d^T (the perpendicular
-    projector): e^T (I - dd^T) e is exactly the squared line distance
+    icp_registration.cpp:115-128). The residual machinery is the NDT
+    linearization (linearize.ndt) with per-voxel information I - d d^T
+    (the perpendicular projector): e^T (I - dd^T) e is exactly the squared line distance
     |d x (qs - mu)|^2, so gate, residual, Jacobian and H/b all reduce to
     the generalized-Gaussian form."""
     n, mu, cov, keys = _merged_moments(pc, grid, opts, dense, stats)
@@ -258,7 +252,7 @@ def target_from_moment_table(keys, count, mean, cov, dense_table, dense_lo,
                              origin, opts: IcpOptions, dims) -> IcpTarget:
     """Derive a p2plane_vox target from an INCREMENTALLY MAINTAINED voxel
     moment table (an ndt.NdtMap built with bin_mode='floor') — the
-    amortization lever PROFILE.md item 1 names: instead of re-sorting the
+    amortization lever for the keyframe rebuild: instead of re-sorting the
     whole ~80k-point local-map window per keyframe (set_target), the moment
     table absorbs only the new keyframe (ndt.update_incremental: sort of one
     scan) and this O(V) pass re-derives planes: neighbor merge + closed-form
@@ -296,11 +290,10 @@ def _build_oct_tables(grid: voxel.HashGrid, dense: voxel.DenseIndex,
                       packed: jax.Array, opts: IcpOptions):
     """Pre-elect the correspondence for every (voxel, octant) cell.
 
-    The per-iteration hot path of p2plane_vox spends ~60% of its time on
-    the XLA-side election: a 7-key dense lookup + (N, 7, 8) row gather +
-    nearest-centroid argmin per point per GN iteration (PROFILE.md §1/§8 —
-    freezing the election wins 1.6x but is unsafe in feedback loops).
-    This is the safe middle ground: the same nearest-valid-centroid
+    Each GN iteration of p2plane_vox runs the election: a 7-key dense
+    lookup + (N, 7, 8) row gather + nearest-centroid argmin per point
+    (freezing the election is unsafe in feedback loops, see
+    IcpOptions.freeze_election_after). This is the safe middle ground: the same nearest-valid-centroid
     election over the NEARBY6+self stencil, evaluated ONCE at target-build
     time at the 8 octant centers of every voxel (half-voxel spatial
     granularity), for the DILATED voxel set (occupied voxels + their empty
@@ -332,12 +325,10 @@ def _build_oct_tables(grid: voxel.HashGrid, dense: voxel.DenseIndex,
         dk[:, None] != voxel.INVALID_KEY)                    # (7V, 7)
     slot7, found7 = voxel.lookup_dense(dense, opts.dense_dims, stencil)
     # Election in TRANSPOSED (8, 7V)/(3, 7V) layout with a running min
-    # over the 7 stencil entries: the direct (7V, 7, 8)/(7V, 8, 7)
-    # formulation pads its minor dims to (8, 128) tiles — an 18x memory
-    # expansion that OOMed the B=64 batched target build (14 GB for a
-    # 784 MB logical temp). Here the large axis stays minor, so every
-    # temp is a clean (8, 7V) tile with zero padding; semantics identical
-    # (first stencil hit wins ties, like argmin).
+    # over the 7 stencil entries, the large axis minor (the direct
+    # (7V, 7, 8) form's padded temps exhausted memory in the B=64 batched
+    # target build on the earlier hardware); semantics identical (first
+    # stencil hit wins ties, like argmin).
     offs = (((jnp.arange(8)[:, None] >> jnp.arange(3)[None, :]) & 1)
             .astype(jnp.float32) * 0.5 + 0.25)               # (8, 3)
     leaf = 1.0 / grid.inv_leaf
@@ -417,7 +408,7 @@ class MatchResult(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def _assemble(J: jax.Array, e: jax.Array, w: jax.Array):
-    """Masked H = sum J^T J, b = -sum J^T e as MXU matmuls.
+    """Masked H = sum J^T J, b = -sum J^T e as matmuls.
 
     J: (N, r, 6), e: (N, r), w: (N,) validity weights.
     """
@@ -488,29 +479,23 @@ def _p2plane_terms(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t):
 
 def _p2plane_vox_terms(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t,
                        gate=None):
-    """Voxel-plane P2Plane linearization: dense O(1) lookups + fused Pallas
-    kernel. Correspondence = nearest-centroid VALID plane voxel among the
-    point's own voxel + its 6 face neighbors (the gather-friendly stand-in
-    for the reference's kd-tree NN; center-only lookup demonstrably diverges
-    near voxel borders — round-2 drive). The candidate ELECTION
-    (nearest-centroid over the 7 rows) happens INSIDE the fused kernel
-    (`p2plane_pick_fused_terms`, PROFILE.md lever 2) so each iteration's
-    XLA side is just the dense lookup + one row gather; `_p2plane_vox_terms_
-    unfused_pick` keeps the XLA-side election as the pinned-equal oracle."""
+    """Voxel-plane P2Plane linearization: dense O(1) lookups + one row
+    gather, then `linearize.p2plane_pick`. Correspondence = nearest-centroid
+    VALID plane voxel among the point's own voxel + its 6 face neighbors
+    (the gather-friendly stand-in for the reference's kd-tree NN;
+    center-only lookup demonstrably diverges near voxel borders — round-2
+    drive)."""
     rows7 = _p2plane_vox_rows7(target, opts, src, R, t)
     g = opts.max_plane_distance if gate is None else gate
-    return pallas_kernels.p2plane_pick_fused_terms(
-        src.xyz, rows7, src.mask.astype(src.xyz.dtype), R, t, g,
-        interpret=not pallas_kernels.on_tpu())
+    return linearize.p2plane_pick(
+        src.xyz, rows7, src.mask.astype(jnp.float32), R, t, g)
 
 
 def _p2plane_vox_rows7(target: IcpTarget, opts: IcpOptions,
                        src: PointCloud, R, t):
-    """The XLA-side candidate gather of `_p2plane_vox_terms`: 7-key dense
-    lookup + (N, 7, 8) packed-row gather at the current pose (validity
-    folded into column 7). Split out so the per-iteration cost can be
-    attributed separately from the fused election kernel
-    (PROFILE.md batched-matching decomposition)."""
+    """The candidate gather of `_p2plane_vox_terms`: 7-key dense lookup +
+    (N, 7, 8) packed-row gather at the current pose (validity folded into
+    column 7)."""
     qs = src.xyz @ R.T + t
     qcoords = voxel.voxel_coords(qs, target.grid.inv_leaf, target.grid.origin)
     keys7 = voxel.coords_to_key(
@@ -525,36 +510,10 @@ def _p2plane_vox_elect(target: IcpTarget, opts: IcpOptions,
                        src: PointCloud, R, t):
     """Correspondence election only: nearest-valid-centroid plane over the
     NEARBY6+self stencil at the CURRENT pose. Returns (plane (N,4), w (N,))
-    — the inputs the plane-only fused kernel consumes."""
-    q = src.xyz
-    qs = q @ R.T + t
-    qcoords = voxel.voxel_coords(qs, target.grid.inv_leaf, target.grid.origin)
-    keys7 = voxel.coords_to_key(
-        qcoords[:, None, :] + voxel.NEARBY6[None, :, :], src.mask[:, None])
-    slot7, found7 = voxel.lookup_dense(target.dense, opts.dense_dims, keys7)
-    rows7 = target.packed[slot7]                             # (N, 7, 8)
-    valid7 = found7 & (rows7[..., 7] > 0.5)                  # (N, 7)
-    d2 = jnp.sum((rows7[..., 4:7] - qs[:, None, :]) ** 2, axis=-1)
-    d2 = jnp.where(valid7, d2, jnp.inf)
-    pick = jnp.argmin(d2, axis=1)                            # (N,)
-    plane = jnp.take_along_axis(
-        rows7[..., 0:4], pick[:, None, None], axis=1)[:, 0]  # (N, 4)
-    w = (jnp.any(valid7, axis=1) & src.mask).astype(q.dtype)
-    return plane, w
-
-
-def _p2plane_vox_terms_unfused_pick(target: IcpTarget, opts: IcpOptions,
-                                    src: PointCloud, R, t, gate=None):
-    """Oracle for `_p2plane_vox_terms`: identical correspondence election
-    (nearest-valid-centroid over NEARBY6+self) expressed as XLA argmin +
-    take_along_axis, feeding the plane-only fused kernel. Pinned equal to
-    the fused-pick path by tests/test_icp.py."""
-    plane, w = _p2plane_vox_elect(target, opts, src, R, t)
-    g = opts.max_plane_distance if gate is None else gate
-    H, b, n_eff, chi2 = pallas_kernels.p2plane_fused_terms(
-        src.xyz, plane, w, R, t, g,
-        interpret=not pallas_kernels.on_tpu())
-    return H, b, n_eff, chi2
+    — the inputs `linearize.p2plane` consumes."""
+    rows7 = _p2plane_vox_rows7(target, opts, src, R, t)
+    plane, has = linearize.elect_plane(rows7, src.xyz @ R.T + t)
+    return plane, has * src.mask.astype(jnp.float32)
 
 
 def _p2line_vox_terms(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t,
@@ -562,8 +521,8 @@ def _p2line_vox_terms(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t
     """Voxel-line P2Line linearization.
 
     Correspondence = nearest-centroid VALID line voxel among the NEARBY6
-    stencil (same election as p2plane_vox); linearization = the fused NDT
-    kernel in weighted mode with per-voxel information I - d d^T, whose
+    stencil (same election as p2plane_vox); linearization = linearize.ndt
+    in weighted mode with per-voxel information I - d d^T, whose
     chi2 |L^T e|^2 is exactly the squared perpendicular line distance —
     gated at max_line_distance^2, matching the reference's |e| <=
     max_line_distance accumulation gate (icp_registration.cpp:132-135)."""
@@ -581,17 +540,16 @@ def _p2line_vox_terms(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t
     rows = jnp.take_along_axis(rows7, pick[:, None, None], axis=1)[:, 0]
     w = (jnp.any(valid7, axis=1) & src.mask).astype(jnp.float32)
     g = opts.max_line_distance if gate is None else gate
-    return pallas_kernels.ndt_fused_terms(
-        q, qs, rows[:, None, 0:3], rows[:, None, 3:12], w[:, None], R, t,
-        g ** 2, weighted=True,
-        interpret=not pallas_kernels.on_tpu())
+    return linearize.ndt(
+        q, qs, rows[:, None, 0:3], rows[:, None, 3:12], w[:, None], R,
+        g ** 2, weighted=True)
 
 
 def _p2plane_vox_oct_terms(target: IcpTarget, opts: IcpOptions,
                            src: PointCloud, R, t, gate=None):
     """Octant-pre-elected P2Plane linearization (see _build_oct_tables):
     per point, ONE dense lookup of its (voxel, octant) cell + one row
-    gather of the pre-elected plane, then the plane-only fused kernel. The
+    gather of the pre-elected plane, then linearize.p2plane. The
     election tracks the pose (the cell a point lands in moves with it) at
     half-voxel granularity instead of exactly per point."""
     q = src.xyz
@@ -609,9 +567,7 @@ def _p2plane_vox_oct_terms(target: IcpTarget, opts: IcpOptions,
     rows = target.packed_ext[row_slot]                       # (N, 8)
     w = (found & (rows[:, 7] > 0.5) & src.mask).astype(q.dtype)
     g = opts.max_plane_distance if gate is None else gate
-    return pallas_kernels.p2plane_fused_terms(
-        q, rows[:, 0:4], w, R, t, g,
-        interpret=not pallas_kernels.on_tpu())
+    return linearize.p2plane(q, rows[:, 0:4], w, R, t, g)
 
 
 _TERM_FNS = {"p2p": _p2p_terms, "p2line": _p2line_terms,
@@ -738,17 +694,14 @@ def set_target_batch(pcs: PointCloud, opts: IcpOptions,
 def scan_match_batch(targets: IcpTarget, opts: IcpOptions, srcs: PointCloud,
                      R0, t0) -> MatchResult:
     """B independent scan matches as ONE device program (vmap over the full
-    GN loop, Pallas kernels included via their batching rule).
+    GN loop).
 
-    The single-stream matcher leaves the chip ~99.99% idle — a converged
-    match is ~4 ms of mostly fixed per-iteration overhead (PROFILE.md §1) —
-    so independent registrations (pending loop candidates, multi-robot
-    streams, offline re-registration sweeps) should ride ONE dispatch: the
-    per-iteration fixed cost is paid once for all B and the MXU sees B
-    fused linearizations back to back. This amortizes exactly what the
+    A single match is mostly fixed per-iteration overhead, so independent
+    registrations (pending loop candidates, multi-robot streams, offline
+    re-registration sweeps) should ride ONE dispatch: the per-iteration
+    fixed cost is paid once for all B. This amortizes exactly what the
     reference pays PER PROBE in its sequential loop over candidates
-    (icp_registration.cpp:161-213). Measured scaling: BENCH_SUITE
-    `throughput_batched`.
+    (icp_registration.cpp:161-213).
 
     targets: IcpTarget with a leading batch axis (from `set_target_batch`
     or a tree_map-stack of same-shape targets); srcs: (B, N, 3)/(B, N);
@@ -767,8 +720,7 @@ def scan_match_batch_chunked(targets: IcpTarget, opts: IcpOptions,
     sequentially and re-stacked.
 
     The direct B-lane program at keyframe-MAP-sized targets (65k points)
-    exceeds the AOT compiler's memory at B>=16 (PROFILE.md §11 item 4) —
-    and even where it compiles, one B-lane executable per distinct B is a
+    can exceed the compiler's memory at B>=16, and even where it compiles, one B-lane executable per distinct B is a
     compile-cache liability. Chunking pays B/chunk dispatch round trips
     but compiles exactly ONE sub-batch executable for any B (the last
     chunk pads with repeated lanes, results dropped), which is the right
@@ -795,12 +747,11 @@ def _scan_match_vox_frozen(target: IcpTarget, opts: IcpOptions,
     """p2plane_vox GN with election freezing (freeze_election_after > 0):
     the first k iterations re-elect correspondences at the current pose;
     later iterations reuse the frozen (plane, weight) assignment and run
-    ONLY the fused linearization kernel — dropping the dense lookup +
-    (N,7,8) row gather (~60% of an iteration, PROFILE.md) once the election
-    is stationary. ADAPTIVE GUARD: any iteration whose PREVIOUS step
+    ONLY the linearization — dropping the dense lookup + (N,7,8) row
+    gather once the election is stationary. ADAPTIVE GUARD: any iteration whose PREVIOUS step
     |dx| > elect_dx_threshold re-elects — large steps mean correspondences
     are still moving (poor init / transient), and there the frozen
-    assignment demonstrably diverges. The in-kernel |n.q+d| <=
+    assignment demonstrably diverges. The |n.q+d| <=
     max_plane_distance gate stays live every iteration, so outlier
     rejection still tracks the pose."""
     n = src.capacity
@@ -824,9 +775,8 @@ def _scan_match_vox_frozen(target: IcpTarget, opts: IcpOptions,
 
         plane, w, R_e, t_e = jax.lax.cond(
             elect, do_elect, lambda a: (plane, w, R_e, t_e), (R, t))
-        H, b, n_eff, chi2 = pallas_kernels.p2plane_fused_terms(
-            src.xyz, plane, w, R, t, opts.max_plane_distance,
-            interpret=not pallas_kernels.on_tpu())
+        H, b, n_eff, chi2 = linearize.p2plane(
+            src.xyz, plane, w, R, t, opts.max_plane_distance)
         ok = n_eff >= opts.min_effective_pts
         dx = jnp.where(ok, mathx.solve_gn_6x6(H, b), jnp.zeros(6, dtype=b.dtype))
         dx = jnp.where(jnp.isfinite(dx), dx, 0.0)

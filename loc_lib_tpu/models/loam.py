@@ -1,6 +1,6 @@
 """LOAM: curvature feature extraction + fused edge/surf registration.
 
-TPU-native rebuild of the reference LOAM stack:
+Rebuild of the reference LOAM stack:
 
   * `LoamFeatureExtract` (/root/reference/LocUtils/src/model/feature_extract/
     loam_feature_extract.cpp): the per-ring sequential loops become one

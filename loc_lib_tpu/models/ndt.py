@@ -1,6 +1,6 @@
 """NDT scan matching: direct and incremental voxelized-Gaussian alignment.
 
-TPU-native rebuild of the reference `NdtRegistration`
+Rebuild of the reference `NdtRegistration`
 (/root/reference/LocUtils/src/model/matching/3d/ndt/ndt_registration.cpp).
 
 Direct mode (SetDirectNdtTargetCloud + AlignNdt, cpp:86-148, 374-464): one
@@ -39,7 +39,7 @@ import jax
 import jax.numpy as jnp
 
 from ..ops.pointcloud import PointCloud
-from ..ops import voxel, pallas_kernels
+from ..ops import linearize, voxel
 from ..utils import lie, mathx
 
 
@@ -56,12 +56,12 @@ class NdtOptions:
     eps: float = 1e-2
     res_outlier_th: float = 20.0
     min_effective_pts: int = 10
-    # TPU-side capacity of the incremental voxel table (reference LRU
+    # Device-side capacity of the incremental voxel table (reference LRU
     # capacity_=100000, hpp:37). Power of two for cheap padding.
     map_capacity: int = 65536
     # Fused fast path: O(1) dense voxel lookup (one gather instead of a
-    # 17-round binary search per stencil probe) + the Pallas linearization
-    # kernel over Cholesky-packed voxel info. use_fused=False keeps the
+    # 17-round binary search per stencil probe) + the linearization over
+    # Cholesky-packed voxel info (ops/linearize.ndt). use_fused=False keeps the
     # jnp-level oracle path (tests pin the two to identical H/b).
     use_fused: bool = True
     dense_dims: tuple = (256, 256, 64)
@@ -89,7 +89,7 @@ class NdtMap(NamedTuple):
     epoch     : () int32 — number of updates applied
     origin    : (3,) float32 key-window origin
     packed    : (V, 13) [mu(3), W(9) row-major sqrt factor, est(1)] — ONE row
-                gather per stencil probe feeds the fused Pallas kernel
+                gather per stencil probe feeds ops/linearize.ndt
                 (None when opts.use_fused=False)
     dense_table, dense_lo : O(1) voxel->slot index (ops.voxel.DenseIndex
                 fields, flattened here so NdtMap stays a flat pytree)
@@ -351,16 +351,14 @@ def _ndt_terms(m: NdtMap, opts: NdtOptions, src: PointCloud, R, t, weighted: boo
     nb_keys = voxel.coords_to_key(qc[:, None, :] + st[None, :, :], src.mask[:, None])
 
     if opts.use_fused and m.packed is not None:
-        # O(1) dense lookup + ONE (N, S, 10) row gather + the fused Pallas
-        # kernel: residual, chi2 gate, Jacobian, H/b in a single pass
+        # O(1) dense lookup + ONE (N, S, 13) row gather, then residual,
+        # chi2 gate, Jacobian and H/b from the packed factors in one pass
         dense = voxel.DenseIndex(table=m.dense_table, lo=m.dense_lo)
         slot, found = voxel.lookup_dense(dense, opts.dense_dims, nb_keys)
         rows = m.packed[slot]                            # (N, S, 13)
         valid = (found & (rows[..., 12] > 0.5)).astype(jnp.float32)
-        return pallas_kernels.ndt_fused_terms(
-            q, qs, rows[..., 0:3], rows[..., 3:12], valid, R, t,
-            opts.res_outlier_th, weighted,
-            interpret=not pallas_kernels.on_tpu())
+        return linearize.ndt(q, qs, rows[..., 0:3], rows[..., 3:12], valid,
+                             R, opts.res_outlier_th, weighted)
 
     slot, found = _lookup(m, nb_keys)                    # (N, S)
     found = found & m.estimated[slot]

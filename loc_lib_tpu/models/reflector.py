@@ -5,7 +5,7 @@ is an empty body behind an option struct of range-banded intensity
 thresholds, target-width gates, and triangle-matching tolerances
 (/root/reference/LocUtils/include/LocUtils/model/reflactor/
 reflactor_proc.hpp:9-23, src/model/reflactor/reflactor_proc.cpp:19-22).
-This module completes it TPU-first, honoring those knobs:
+This module completes it as batched device code, honoring those knobs:
 
   * `detect_markers` — beams above the range-banded intensity threshold are
     clustered by angular adjacency (segment ops, fixed capacity), cluster

@@ -6,7 +6,7 @@ the kd-tree is checked against (test_node.cpp:376-435). Here it plays the
 same role for the hash-grid `ops.voxel.knn`: an O(Q*N) masked distance
 matrix + top-k, exact over the WHOLE cloud with no stencil-radius bound.
 Unlike the reference's per-query std::sort loop this is one batched
-matmul-shaped program (the distance matrix rides the MXU via the
+matmul-shaped program (the distance matrix is a matmul via the
 |a-b|^2 = |a|^2 - 2ab + |b|^2 expansion), so it is also a perfectly usable
 matcher backend for small targets, not just a test fixture.
 """
@@ -32,7 +32,7 @@ def knn(target: PointCloud, queries: jax.Array, query_mask: jax.Array,
     """
     t = target.xyz                                         # (N, 3)
     # |q - t|^2 = |q|^2 - 2 q.t + |t|^2 : the cross term is one (Q,3)x(3,N)
-    # MXU matmul instead of a (Q,N,3) broadcast in HBM
+    # matmul instead of a (Q,N,3) broadcast in HBM
     cross = queries @ t.T                                  # (Q, N)
     d2 = (jnp.sum(queries * queries, axis=1)[:, None]
           - 2.0 * cross + jnp.sum(t * t, axis=1)[None, :])

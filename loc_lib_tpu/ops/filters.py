@@ -1,6 +1,6 @@
 """Cloud filters as mask transforms.
 
-TPU-native equivalents of the reference `cloud_filter/` module
+Fixed-shape equivalents of the reference `cloud_filter/` module
 (/root/reference/LocUtils/src/model/cloud_filter/): `pcl::VoxelGrid` becomes
 `voxel.voxel_downsample`, `pcl::CropBox` becomes a pure mask update (the box
 filter is how localization crops its 150 m local map, box_filter.cpp:25-57),

@@ -1,6 +1,6 @@
 """Fixed-shape point-cloud container.
 
-TPU-native replacement of the reference's PCL cloud types
+Fixed-shape replacement of the reference's PCL cloud types
 (/root/reference/LocUtils/include/LocUtils/common/point_types.h:18-169 and
 sensor_data/cloud_data.hpp:13-28). Variable-length `pcl::PointCloud` becomes a
 padded `(N, 3)` float32 array plus a validity mask so every downstream kernel

@@ -4,8 +4,9 @@ The reference prototyped exactly this as its "FPGA" experiment: replace the
 kd-tree with a fixed +-2-ring x +-5-point window search over ring-organized
 scans (/root/reference/slam_demo/src/apps/fpga_node.cpp:47-82 FindNearstP,
 129-240 TestRingSearch) — a hardware-friendly, regular-memory NN. That is
-precisely the right shape for a TPU: organizing a scan as a (rings, cols)
-range image makes the window search a pure VPU stencil — shifted subtracts
+precisely the right shape for an accelerator: organizing a scan as a
+(rings, cols) range image makes the window search a pure elementwise
+stencil — shifted subtracts
 and running mins over a (R, C, 3) tensor, zero gathers, zero sorts — while
 the hash-grid kNN (ops/voxel.py) still serves unorganized map clouds.
 

@@ -1,6 +1,6 @@
 """Voxel hashing: downsample, hash-grid build, and gather-style kNN.
 
-This module is the TPU-native replacement for three reference components:
+This module is the fixed-shape replacement for three reference components:
 
   * `pcl::VoxelGrid` wrapper (cloud_filter/voxel_filter.cpp:19-26)
     -> `voxel_downsample`: sort-by-key + segment-mean centroid downsample.
@@ -15,8 +15,8 @@ This module is the TPU-native replacement for three reference components:
 
 Design notes
 ------------
-Dynamic-size hash maps don't exist on a TPU, so voxel coordinates are offset
-into a bounded window of 1024 cells per axis (+-512 around a caller-supplied
+Dynamic-size hash maps don't fit fixed-shape programs, so voxel coordinates
+are offset into a bounded window of 1024 cells per axis (+-512 around a caller-supplied
 origin) and packed into a single positive int32 key. Points outside the window
 get the sentinel key INVALID_KEY and fall out of every masked reduction. At
 the reference's operating resolutions (SURVEY.md section 6: 0.5-1.2 m voxels,
@@ -28,7 +28,7 @@ Memory layout for queries: the grid stores bucket point COORDINATES inline
 (`bucket_xyz`, (V, C, 3)) rather than indices, so a kNN query is a single
 slot gather of contiguous C*3-float rows instead of a second random gather
 per candidate — the difference between HBM-latency-bound and
-HBM-bandwidth-bound on TPU.
+HBM-bandwidth-bound.
 
 All functions are shape-static and jit/vmap-safe. Sorting is the workhorse:
 XLA's on-device sort replaces every pointer-chasing container the reference
@@ -139,7 +139,7 @@ class HashGrid(NamedTuple):
     bucket_xyz : (V, 3*C) float32 point coords per voxel in
                  structure-of-arrays row layout [x0..xC, y0..yC, z0..zC] —
                  a single fast row gather per slot, and the x/y/z planes come
-                 out as contiguous lane slices with no relayout.
+                 out as contiguous slices with no transpose.
     bucket_idx : (V, C) int32 original point indices (-1 padded)
     bucket_cnt : (V,) int32 points actually stored per voxel
     num_voxels : () int32
@@ -262,9 +262,8 @@ class DenseIndex(NamedTuple):
     """O(1) voxel lookup: a dense int32 slot table over a bounded voxel-coord
     window anchored at the target's AABB min corner.
 
-    Replaces the 17-round binary search of `lookup_voxels` with ONE gather —
-    the searchsorted lookup measured 0.8 ms/iteration on v5e for 8k queries
-    against 64k keys vs ~0 for the dense gather (round-2 profile). The window
+    Replaces the 17-round binary search of `lookup_voxels` with ONE gather.
+    The window
     is static-shape (`dims`); queries outside it report found=False, which is
     the same degradation mode as the WINDOW clamp above. At the reference's
     operating resolutions (SURVEY.md section 6) the default window covers the
@@ -329,8 +328,8 @@ def lookup_voxels(grid: HashGrid, query_keys: jax.Array):
 def _topk_small(d2: jax.Array, k: int):
     """k iterative masked argmin passes over the last axis.
 
-    For tiny k (<=5) this compiles and runs faster on TPU than
-    `jax.lax.top_k`'s full sorting network over hundreds of lanes.
+    For tiny k (<=5) this avoids `jax.lax.top_k`'s full sorting network
+    over hundreds of lanes.
     Returns (positions (Q, k) int32, values (Q, k))."""
     q, m = d2.shape
     work = d2

@@ -42,7 +42,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from ..models import icp, ndt
-from ..ops import voxel, pallas_kernels
+from ..ops import linearize, voxel
 from ..ops.pointcloud import PointCloud, PAD_COORD
 from ..utils import lie, mathx
 
@@ -221,7 +221,7 @@ def icp_scan_match_sharded(mesh: Mesh, st: ShardedIcpTarget,
     Per point, each map shard proposes its nearest valid plane voxel among
     the NEARBY6 stencil; a pmin over 'mp' (distance, then shard index as the
     tiebreak) elects exactly one winner, whose shard folds the point into its
-    local Pallas-fused H/b. One psum over both axes closes the iteration."""
+    local H/b (ops/linearize.p2plane). One psum over both axes closes the iteration."""
 
     def kernel(target_blk, xyz, mask, R0, t0):
         tgt = _take0(target_blk)
@@ -248,18 +248,15 @@ def icp_scan_match_sharded(mesh: Mesh, st: ShardedIcpTarget,
             winner = jax.lax.pmin(cand, "mp")
             win = (cand == winner) & (cand < _BIG)
             w = (win & mask).astype(jnp.float32)
-            return pallas_kernels.p2plane_fused_terms(
-                xyz, plane, w, R, t, opts.max_plane_distance,
-                interpret=not pallas_kernels.on_tpu())
+            return linearize.p2plane(xyz, plane, w, R, t,
+                                     opts.max_plane_distance)
 
         return _gn_loop(terms, opts, R0, t0, axes=("dp", "mp"))
 
-    # check_vma=False: the Pallas fused kernel's out_shape carries no
-    # varying-mesh-axes annotation, which the vma checker rejects
     return shard_map(
         kernel, mesh=mesh,
         in_specs=(_mp_specs(st.target), P("dp"), P("dp"), P(), P()),
-        out_specs=P(), check_vma=False,
+        out_specs=P(),
     )(st.target, src.xyz, src.mask, jnp.asarray(R0, jnp.float32),
       jnp.asarray(t0, jnp.float32))
 
@@ -404,7 +401,7 @@ def ndt_scan_match_sharded(mesh: Mesh, sm: ShardedNdtMap,
     return shard_map(
         kernel, mesh=mesh,
         in_specs=(_mp_specs(sm.map), P("dp"), P("dp"), P(), P()),
-        out_specs=P(), check_vma=False,
+        out_specs=P(),
     )(sm.map, src.xyz, src.mask, jnp.asarray(R0, jnp.float32),
       jnp.asarray(t0, jnp.float32))
 

@@ -1,6 +1,6 @@
 """Distributed scan matching: SPMD Gauss-Newton over a device mesh.
 
-This is the TPU-native replacement for the intra-op parallelism the reference
+This is the device-parallel replacement for the intra-op parallelism the reference
 never wrote (its NDT loop allocates per-residual arrays "for some concurrent
 code" but runs sequentially, ndt_registration.cpp:280-347; the kd-tree's
 GetClosestPointMT was declared and never implemented, kdtree.h:54).
@@ -10,7 +10,7 @@ Design (the scaling-book recipe): shard the SOURCE POINTS across the mesh's
 table), and run the full GN `while_loop` inside `shard_map`. Each device
 linearizes its point shard locally — transform, neighbor gather, local fit,
 J/e assembly — and one 6x6/6-vector `psum` per iteration fuses the global
-normal equations over ICI. Every device solves the identical 6x6 system, so
+normal equations. Every device solves the identical 6x6 system, so
 the iterate stays replicated with zero extra communication: the per-iteration
 traffic is 42 floats, independent of cloud size.
 """

@@ -2,10 +2,12 @@
 
 The reference is a single-process CPU library with ROS pub/sub as its only
 transport (SURVEY.md section 2 "Parallelism & distribution": none). Here
-distribution is first-class: a `jax.sharding.Mesh` over the TPU slice, with
+distribution is first-class: a `jax.sharding.Mesh` over the devices, with
 point/data parallelism ("dp") for residual fan-out and a map axis ("mp") for
-spatial shards of the voxel map / keyframe blocks. All collectives ride ICI
-via XLA (`psum`, `all_gather`); there is no NCCL/MPI equivalent to port.
+spatial shards of the voxel map / keyframe blocks. The mesh shape follows the
+algorithm alone: four H100s of one host are joined all to all by NVLink, so
+every device reaches every other at the same rate. Collectives are XLA's
+(`psum`, `all_gather`, lowered to NCCL on the GPU).
 """
 
 from __future__ import annotations

@@ -3,18 +3,20 @@
 The reference's only transport is single-machine ROS pub/sub
 (SURVEY.md section 2 "Parallelism & distribution": no MPI/NCCL/multi-node
 anything). Here multi-host is first-class: one `init()` call per process
-wires the JAX distributed runtime (ICI inside a slice, DCN across hosts),
+wires the JAX distributed runtime (NVLink inside a host, the network across
+hosts),
 after which every `shard_map`/`pjit` program in this package — the
 distributed matchers (parallel/match.py), the spatially sharded maps
 (parallel/map_shard.py), the edge-sharded pose graph (parallel/graph.py) —
 runs unchanged over the GLOBAL device set: XLA inserts the cross-host
 collectives behind the same `psum`s.
 
-Pod tests don't need hardware (SURVEY.md section 4): CPU processes with
+Multi-host tests don't need hardware (SURVEY.md section 4): CPU processes with
 gloo collectives simulate hosts — see tests/test_multihost.py, which
 spawns N local processes, each `init()`s against a local coordinator, and
-checks a global-mesh psum. On a real TPU pod, `init()` with no arguments
-picks everything up from the TPU environment metadata.
+checks a global-mesh psum. Nothing tells JAX of a GPU cluster, so pass the
+coordinator address, process count and process id (arguments or the
+JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID variables).
 """
 
 from __future__ import annotations
@@ -34,11 +36,10 @@ def init(coordinator_address: Optional[str] = None,
     """Initialize the JAX distributed runtime for this process.
 
     No-op when running single-process (nothing configured and no
-    JAX_COORDINATOR_ADDRESS in the environment). On TPU pods all arguments
-    are auto-detected from the environment; for CPU/GPU simulation pass them
+    JAX_COORDINATOR_ADDRESS in the environment). Otherwise pass all three
     (or set JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID).
 
-    local_device_count: for CPU pod simulation, the number of virtual local
+    local_device_count: for CPU multi-host simulation, the number of virtual local
     devices this process contributes (sets jax_num_cpu_devices; must happen
     before the backend initializes).
     """
@@ -72,8 +73,8 @@ def is_multiprocess() -> bool:
 def global_mesh(dp: Optional[int] = None, mp: int = 1) -> Mesh:
     """(dp, mp) mesh over ALL global devices (every process sees the same
     mesh). Defaults to dp = device_count / mp. Lay 'mp' innermost so map
-    shards of one slab-group sit on one host's ICI where possible and the
-    'dp' reduction rides DCN only once per host."""
+    shards of one slab-group sit on one host where possible and the 'dp'
+    reduction crosses hosts only once per host."""
     n = jax.device_count()
     if dp is None:
         dp = n // mp

@@ -1,6 +1,6 @@
-"""Batched SO(3)/SE(3) Lie-group operations for TPU.
+"""Batched SO(3)/SE(3) Lie-group operations.
 
-TPU-native replacement for the reference's Sophus usage
+Batched replacement for the reference's Sophus usage
 (/root/reference/LocUtils/include/LocUtils/common/eigen_types.h:12-107 and
 math_utils.h SO3 exp/log helpers). Everything here is a pure jax function over
 float arrays, closed-form (no iterative routines), broadcastable over leading
@@ -221,7 +221,7 @@ def se3_jl_inv(xi: jax.Array) -> jax.Array:
     The exact derivative d/d_eps Log(Exp(eps) Exp(xi)) at eps = 0 — what the
     pose-graph edge linearization needs in closed form instead of pushing 6
     jacfwd tangents through compose/inverse/log (the dominant XLA compile
-    cost of the PGO program, BENCH_SUITE slam3d_loop.pgo_first_call_s)."""
+    cost of the PGO program)."""
     w, v = xi[..., :3], xi[..., 3:]
     Jinv = so3_jl_inv(w)
     Q = _se3_Q(w, v)

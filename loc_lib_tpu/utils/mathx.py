@@ -1,6 +1,6 @@
 """Batched geometry/statistics kernels.
 
-TPU-native rewrite of the reference math kernel namespace `LocUtils::math`
+Batched rewrite of the reference math kernel namespace `LocUtils::math`
 (/root/reference/LocUtils/include/LocUtils/common/math_utils.h): masked
 mean/covariance reductions (math_utils.h:36-72), Gaussian merge
 (math_utils.h:88-98), plane fit (math_utils.h:113-136) and line fit
@@ -69,11 +69,9 @@ def eigh_sym3x3(A: jax.Array):
 
     Analytic eigenvalues (Cardano, ascending order) and eigenvectors by the
     matrix-product trick: for eigenvalue li, the columns of
-    (A - lj I)(A - lk I) span its eigenspace. Fully branch-free arithmetic —
-    on TPU this runs on the VPU in microseconds where `jnp.linalg.eigh`'s
-    iterative batched factorization takes tens of milliseconds (measured:
-    30.7 ms for 8192x(3,3) on v5e), which made it the #2 hot spot of the
-    whole ICP pipeline. Accuracy is ample for covariance/plane work (~1e-6
+    (A - lj I)(A - lk I) span its eigenspace. Fully branch-free elementwise
+    arithmetic, in place of `jnp.linalg.eigh`'s iterative batched
+    factorization. Accuracy is ample for covariance/plane work (~1e-6
     relative for well-separated eigenvalues; degenerate pairs fall back to
     stable column selection).
     """
@@ -225,7 +223,7 @@ def cholesky_3x3(A: jax.Array):
 
     Used to pre-factor NDT per-voxel information matrices at map-build time
     so the matching kernel folds info into rows B = L^T J / z = L^T e and
-    accumulates plain outer products (H = B^T B) on the MXU — no per-point
+    accumulates plain outer products (H = B^T B) — no per-point
     3x3 quadratic forms in the hot loop. Degenerate inputs (zero info of a
     non-estimated voxel) produce zeros, not NaNs."""
     # Off-diagonal solves are CLIPPED to their exact-arithmetic PSD bounds

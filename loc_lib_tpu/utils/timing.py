@@ -1,6 +1,6 @@
 """Timing and profiling instruments.
 
-TPU-native rebuild of the reference's performance tooling:
+Rebuild of the reference's performance tooling:
 
   * `TicToc` (/root/reference/LocUtils/include/LocUtils/tools/tic_toc.hpp:
     13-30) — wall-clock stopwatch returning milliseconds.

@@ -42,7 +42,7 @@ def fit_plane(pts, eps=1e-2):
 
 
 def fit_plane_centered(pts, eps=1e-2):
-    """The TPU engine's plane fit in float64: centroid + PCA normal, 4-vector
+    """The engine's plane fit in float64: centroid + PCA normal, 4-vector
     renormalized. This IS the exact [p-c, 1] TLS (the centered Gram matrix is
     block diagonal); it deviates from the reference's uncentered [p, 1] TLS
     (fit_plane above) by an origin-distance-dependent bias the rebuild

@@ -100,7 +100,7 @@ def test_h_b_matches_oracle_p2plane():
     qs_all = src @ np.array(R0).T + t0
 
     def nn_fn(qs):
-        # the TPU search sees only the 3x3x3 cell window around qs; take the
+        # the hash-grid search sees only the 3x3x3 cell window around qs; take the
         # 5 nearest among those candidates (exactly the hash-grid semantics)
         cell = np.floor(qs)
         in_stencil = np.all(np.abs(np.floor(scene) - cell) <= 1, axis=1)
@@ -115,7 +115,7 @@ def test_h_b_matches_oracle_p2plane():
 
     # correspondence/gate semantics must match the reference exactly
     assert abs(int(eff) - eff_ref) <= 2
-    # H/b agree up to f32-vs-f64 plane-fit precision (the TPU path fits in
+    # H/b agree up to f32-vs-f64 plane-fit precision (the engine fits in
     # float32; the oracle in float64); the solved GN step must agree tightly
     scale = np.abs(H_ref).max()
     np.testing.assert_allclose(np.array(H), H_ref, atol=scale * 0.12)
@@ -176,34 +176,10 @@ def test_vox_plane_table_alignment_and_geometry():
     assert abs(coeffs[3]) < 1e-2              # plane through z=0
 
 
-def test_fused_pick_matches_unfused_pick_oracle():
-    """The in-kernel nearest-centroid election (p2plane_pick_fused_terms)
-    must produce the exact same normal equations as the XLA argmin +
-    take_along_axis election feeding the plane-only kernel — the pinned
-    oracle pair for PROFILE.md lever 2."""
-    rng = np.random.default_rng(11)
-    scene, src, _, _ = _make_pair(rng, [0.02, -0.03, 0.04], [0.3, -0.2, 0.15])
-    opts = icp.IcpOptions(method="p2plane_vox", dense_dims=(64, 64, 32))
-    tgt = icp.set_target(pcm.from_numpy(scene, capacity=2048), opts)
-    src_pc = pcm.from_numpy(src, capacity=2048)
-    for w, trans in ([0.0, 0.0, 0.0], [0.0, 0.0, 0.0]), \
-            ([0.01, -0.02, 0.03], [0.1, -0.05, 0.2]):
-        R = jnp.asarray(lie.so3_exp(jnp.asarray(w, jnp.float32)))
-        t = jnp.asarray(trans, jnp.float32)
-        H1, b1, n1, c1 = icp._p2plane_vox_terms(tgt, opts, src_pc, R, t)
-        H2, b2, n2, c2 = icp._p2plane_vox_terms_unfused_pick(
-            tgt, opts, src_pc, R, t)
-        assert int(n1) == int(n2) and int(n1) > 0
-        np.testing.assert_allclose(np.asarray(H1), np.asarray(H2),
-                                   rtol=1e-5, atol=1e-4)
-        np.testing.assert_allclose(np.asarray(b1), np.asarray(b2),
-                                   rtol=1e-5, atol=1e-4)
-        np.testing.assert_allclose(float(c1), float(c2), rtol=1e-5, atol=1e-4)
-
-
 def test_fused_terms_match_reference_formula():
-    """Pallas fused H/b vs a straight numpy evaluation of the same math."""
-    from loc_lib_tpu.ops import pallas_kernels
+    """Plain P2Plane linearization (ops/linearize.p2plane) vs a straight
+    float64 numpy evaluation of the same math."""
+    from loc_lib_tpu.ops import linearize
     rng = np.random.default_rng(9)
     n = 4096
     q = rng.uniform(-5, 5, size=(n, 3)).astype(np.float32)
@@ -215,11 +191,11 @@ def test_fused_terms_match_reference_formula():
     R = oracles.so3_exp(np.array([0.05, -0.1, 0.2])).astype(np.float32)
     t = np.array([0.3, -0.1, 0.25], np.float32)
     gate = 0.5
-    H, b, n_eff, chi2 = pallas_kernels.p2plane_fused_terms(
+    H, b, n_eff, chi2 = jax.jit(linearize.p2plane)(
         jnp.asarray(q), jnp.asarray(plane), jnp.asarray(w),
-        jnp.asarray(R), jnp.asarray(t), gate, interpret=True)
+        jnp.asarray(R), jnp.asarray(t), gate)
     # numpy reference
-    qs = q @ R.T + t
+    qs = q.astype(np.float64) @ R.T + t
     dis = np.sum(nvec * qs, axis=1) + d[:, 0]
     wf = w * (np.abs(dis) <= gate)
     rn = nvec @ R        # row-wise R^T n
@@ -291,7 +267,7 @@ def test_p2line_vox_recovers_pose():
 
 def test_loam_vox_fused_recovers_pose():
     """LOAM with both fused voxel methods (surf=p2plane_vox,
-    edge=p2line_vox): the production TPU configuration of the reference's
+    edge=p2line_vox): the production configuration of the reference's
     edge+surf joint solve (loam_registration.cpp:38-99)."""
     from loc_lib_tpu.models import loam
     rng = np.random.default_rng(11)

@@ -244,8 +244,7 @@ def test_pgo_reduces_ate_two_laps():
     """The measured NET benefit of 3D loop closure (VERDICT r3 weak #2):
     on a two-lap circle with accumulated odometry drift, keyframe ATE
     after the two-phase PGO must be strictly lower than before, from the
-    SAME run (the committed-artifact twin is BENCH_SUITE slam3d_loop's
-    ate_before/after_pgo_m)."""
+    SAME run."""
     import dataclasses
     from loc_lib_tpu.ops.pointcloud import PointCloud
     from loc_lib_tpu.eval import metrics
@@ -271,7 +270,6 @@ def test_pgo_reduces_ate_two_laps():
     after = metrics.ate(eng.keyframe_poses(), kf_gt)
     assert len(eng.loops) >= 3
     # the claim under test is the NET benefit: a meaningful reduction
-    # (measured 0.17 -> 0.07 at this config; the full-size numbers live in
-    # BENCH_SUITE slam3d_loop's ate_before/after_pgo_m)
+    # (measured 0.17 -> 0.07 at this config)
     assert after.rmse < 0.75 * before.rmse, (after.rmse, before.rmse)
     assert after.rmse < 0.12
