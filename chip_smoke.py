@@ -20,9 +20,12 @@ Phases, in one process and in this order (any failure exits non-zero):
   (d) mapping: `run_mapping` on a 30-frame demo log of 8,192-point scans,
       with the default matcher and with ndt_inc (65,536-voxel table).
   (e) localization: `run_matching` (p2plane_vox, 150 m box, 131,072-point
-      crop of a 120k-point world) on a 20-frame demo log.
-  (f) SLAM: `apps.slam` --demo (LIO + ScanContext + loop registration +
-      PGO) on a short log.
+      crop of a 120k-point world) on the 20-frame `apps.matching --demo`
+      log at 2 m/s, seeded with the first pose and velocity.
+  (f) SLAM: `apps.slam --demo`, two laps of a circle at 8,192-point scans
+      (LIO + ScanContext + batched loop registration + PGO); must close at
+      least one loop through the batched path, and the pose graph must
+      move the keyframes.
 
 Each of (d)-(f) must reach an ATE no more than ATE_SLACK_M above the same
 phase's CPU ATE (`CPU_ATE_M`, from --rehearse-cpu at the same sizes).
@@ -35,10 +38,9 @@ import argparse
 import functools
 import json
 import os
-import shutil
-import subprocess
-import sys
 import time
+
+from loc_lib_tpu.utils.device import card_line, require_gpu
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(REPO, "chiprun_out", "chip_smoke")
@@ -46,42 +48,19 @@ OUT = os.path.join(REPO, "chiprun_out", "chip_smoke")
 SCAN_POINTS = 8192
 MAP_FRAMES = 30
 LOC_FRAMES = 20
-SLAM_FRAMES = 30
+SLAM_FRAMES = 92            # two laps of apps.slam's demo circle
 FOUR_FRAMES = 12
 ROT_GATE_RAD = 0.0088       # 0.5 deg (bench.PARITY_ROT_RAD)
 TRANS_GATE_M = 0.03         # 3 cm (bench.PARITY_TRANS_M)
 SHARD_POSE_TOL_M = 0.02     # tests/test_map_shard.py sharded-vs-single bound
 ATE_SLACK_M = 0.01
 # ATE of each phase on the CPU at the sizes above (--rehearse-cpu)
-CPU_ATE_M = {"mapping_icp": 0.0473, "mapping_ndt_inc": 0.0497, "loc": 0.1999,
-             "slam": 0.0473}
+CPU_ATE_M = {"mapping_icp": 0.0473, "mapping_ndt_inc": 0.0497, "loc": 0.0027,
+             "slam_odometry": 0.0508, "slam_keyframes_pgo": 0.0452}
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def require_gpu():
-    """The first device JAX sees, which must be a GPU; exits otherwise."""
-    import jax
-    dev = jax.devices()[0]
-    if dev.platform != "gpu":
-        print(f"chip_smoke: no GPU (JAX's first device is {dev.platform}: "
-              f"{dev.device_kind})", file=sys.stderr)
-        raise SystemExit(2)
-    return dev
-
-
-def card_line() -> str:
-    """`name, power.limit` from nvidia-smi, run as a child without JAX; one
-    `; `-separated entry per card."""
-    if shutil.which("nvidia-smi") is None:
-        return "nvidia-smi: not available"
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return "; ".join(out.stdout.split("\n")).strip("; ")
 
 
 def memory(jitted, *args, **kw) -> str:
@@ -176,8 +155,7 @@ def _check_ate(name, ate, ates):
     ates[name] = ate
     ref = CPU_ATE_M[name]
     log(f"  {name}: ATE {ate} m (CPU {ref} m)")
-    if ref is not None:
-        assert ate <= ref + ATE_SLACK_M, (name, ate, ref)
+    assert ate <= ref + ATE_SLACK_M, (name, ate, ref)
 
 
 def phase_mapping(card, ates):
@@ -196,32 +174,20 @@ def phase_mapping(card, ates):
         _check_ate("mapping_" + matcher, rep["ate_rmse_m"], ates)
 
 
-def _demo_loc_inputs(frames, speed=2.0):
-    """The `apps.matching --demo` inputs: a demo log, the 120k-point world it
-    was rendered from as the prior map, and the ground-truth pose of the
-    first measure group as the initial pose."""
-    from loc_lib_tpu.io import logdir, synthetic
-    log_ = logdir.make_demo_log(num_frames=frames, capacity=SCAN_POINTS,
-                                speed=speed)
-    world = synthetic.make_world(num_points=120000, extent=80.0, seed=0)
-    init = log_.gt_poses[next(iter(log_.measures())).scan_index]
-    return log_, world, init
-
-
 def phase_loc(card, ates):
     import jax.numpy as jnp
-    from loc_lib_tpu.apps.matching import run_matching
+    from loc_lib_tpu.apps.matching import demo_inputs, run_matching
     from loc_lib_tpu.ops.pointcloud import PointCloud
     from loc_lib_tpu.pipeline import loc as loc_mod
 
-    log_, world, init = _demo_loc_inputs(LOC_FRAMES)
+    log_, world, init, v0 = demo_inputs(LOC_FRAMES, SCAN_POINTS)
     opts = loc_mod.LocOptions(scan_capacity=SCAN_POINTS)
     rep = run_matching(log_, world, opts, os.path.join(OUT, "matching"),
-                       init_pose=init)
+                       init_pose=init, init_velocity=v0)
     log(f"  matcher={opts.matcher}/{opts.icp.method}: frames {rep['frames']}, "
         f"stage_ms {rep['stage_ms']} [{card}]")
     eng = loc_mod.Loc(world, opts)
-    eng.set_init_pose(init[:3, :3], init[:3, 3])
+    eng.set_init_pose(init[:3, :3], init[:3, 3], v0)
     mg = next(iter(log_.measures(imu_capacity=64)))
     scan = PointCloud(xyz=jnp.asarray(log_.scan_xyz[mg.scan_index]),
                       mask=jnp.asarray(log_.scan_mask[mg.scan_index]))
@@ -234,19 +200,25 @@ def phase_loc(card, ates):
 
 def phase_slam(card, ates):
     from loc_lib_tpu.apps import slam as slam_app
-    from loc_lib_tpu.io import logdir
-    from loc_lib_tpu.pipeline import lio as lio_mod
 
     out = os.path.join(OUT, "slam")
     slam_app.main(["--demo", "--demo-frames", str(SLAM_FRAMES), "--out", out])
     with open(os.path.join(out, "report.json")) as f:
         rep = json.load(f)
     log(f"  frames {rep['frames']}, keyframes {rep['keyframes']}, loops "
-        f"{rep['loops']}, stage_ms {rep['stage_ms']} [{card}]")
-    log_ = logdir.make_demo_log(num_frames=SLAM_FRAMES)
+        f"{rep['loops']} ({rep['loop_inliers']} PGO inliers, "
+        f"{rep['loop_batches']} batched registrations), PGO moved keyframes "
+        f"up to {rep['pgo_max_shift_m']} m, keyframe ATE online "
+        f"{rep['kf_ate_online_m']} m -> after PGO {rep['kf_ate_pgo_m']} m, "
+        f"stage_ms {rep['stage_ms']} [{card}]")
+    log_ = slam_app.demo_log(SLAM_FRAMES)
     log("    " + _lio_step_memory(
-        log_, lio_mod.LioOptions(scan_capacity=log_.scan_xyz.shape[1])))
-    _check_ate("slam", rep["ate_rmse_m"], ates)
+        log_, slam_app.demo_options(log_.scan_xyz.shape[1]).lio))
+    assert rep["loops"] >= 1 and rep["loop_inliers"] >= 1, rep
+    assert rep["loop_batches"] >= 1, rep
+    assert rep["pgo_max_shift_m"] > 0.0, rep
+    _check_ate("slam_odometry", rep["ate_rmse_m"], ates)
+    _check_ate("slam_keyframes_pgo", rep["kf_ate_pgo_m"], ates)
 
 
 def phase_four(card):
@@ -254,7 +226,7 @@ def phase_four(card):
     the single-device run of each on the same log, frame by frame."""
     import numpy as np
     from loc_lib_tpu.apps.mapping import run_mapping
-    from loc_lib_tpu.apps.matching import run_matching
+    from loc_lib_tpu.apps.matching import demo_inputs, run_matching
     from loc_lib_tpu.io import logdir, trajectory
     from loc_lib_tpu.pipeline import lio as lio_mod, loc as loc_mod
 
@@ -279,16 +251,11 @@ def phase_four(card):
             f" (bound {SHARD_POSE_TOL_M} m)")
         assert err.max() < SHARD_POSE_TOL_M, (name, err)
 
-    # At the demo's 2 m/s the ESKF starts at zero velocity and the predicted
-    # pose trails by 0.2 m per scan, twice the 0.1 m plane gate: the track
-    # then hinges on which residuals sit at the gate, and the sharded and
-    # single runs' different float summation orders part ways. At 0.5 m/s
-    # the lag stays inside the gate and Loc tracks, so the comparison
-    # tests the sharding and not that cliff.
-    log_, world, init = _demo_loc_inputs(FOUR_FRAMES, speed=0.5)
+    log_, world, init, v0 = demo_inputs(FOUR_FRAMES, SCAN_POINTS)
     lopts = loc_mod.LocOptions(scan_capacity=SCAN_POINTS)
     compare("matching", lambda out, k: run_matching(
-        log_, world, lopts, out, init_pose=init, mp_shards=k))
+        log_, world, lopts, out, init_pose=init, mp_shards=k,
+        init_velocity=v0))
 
     mlog = logdir.make_demo_log(num_frames=FOUR_FRAMES, capacity=SCAN_POINTS)
     mopts = lio_mod.LioOptions(matcher="ndt_inc", scan_capacity=SCAN_POINTS)

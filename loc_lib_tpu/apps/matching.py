@@ -29,11 +29,14 @@ def run_matching(log: logdir.SensorLog, global_map_xyz: np.ndarray,
                  opts: loc_mod.LocOptions, out_dir: str,
                  init_pose: np.ndarray | None = None,
                  mp_shards: int = 0,
-                 shard_capacity: int | None = None) -> dict:
+                 shard_capacity: int | None = None,
+                 init_velocity: np.ndarray | None = None) -> dict:
     """mp_shards > 0 runs the spatially sharded Loc (pipeline/loc_sharded):
     the box-cropped local map partitioned over an mp-axis mesh so the map
     working set scales past one device's HBM (the scaled analog of
-    loc.cpp:187-206's 150 m box)."""
+    loc.cpp:187-206's 150 m box). `init_velocity` (3,) seeds the ESKF's
+    world-frame velocity along with the initial pose; without it the
+    filter starts at rest."""
     os.makedirs(out_dir, exist_ok=True)
     import jax.numpy as jnp
 
@@ -56,19 +59,26 @@ def run_matching(log: logdir.SensorLog, global_map_xyz: np.ndarray,
         init_pose[:3, 3] = enu.to_enu(*log.gnss.lla[0])
     if init_pose is None:
         init_pose = np.eye(4, dtype=np.float32)
-    engine.set_init_pose(init_pose[:3, :3], init_pose[:3, 3])
+    engine.set_init_pose(init_pose[:3, :3], init_pose[:3, 3], init_velocity)
 
     timer = StageTimer()
     stamps, frame_idxs = [], []
+    t_fix = None
     for mg in log.measures(imu_capacity=64):
         scan = PointCloud(xyz=jnp.asarray(log.scan_xyz[mg.scan_index]),
                           mask=jnp.asarray(log.scan_mask[mg.scan_index]))
+        # the initial fix holds at the first scan: IMU samples up to it
+        # happened before that pose and velocity and are not integrated
+        if t_fix is None:
+            t_fix = mg.scan_stamp
+        imu_valid = np.asarray(mg.imu_valid) & (np.asarray(mg.imu_stamp)
+                                                > t_fix)
         with timer.stage("loc_step"):
             # IMU packet + scan as ONE device program (the reference polls
             # Update(imu) per sample at 200 Hz; here the packet rides a
             # lax.scan inside the same jit as the match)
             engine.update_measure(scan, mg.imu_gyro, mg.imu_acce,
-                                  mg.imu_stamp, mg.imu_valid)
+                                  mg.imu_stamp, imu_valid)
         stamps.append(mg.scan_stamp)
         frame_idxs.append(mg.scan_index)
 
@@ -84,6 +94,21 @@ def run_matching(log: logdir.SensorLog, global_map_xyz: np.ndarray,
     with open(os.path.join(out_dir, "report.json"), "w") as f:
         json.dump(report, f, indent=1)
     return report
+
+
+def demo_inputs(num_frames: int, capacity: int = 8192):
+    """The `--demo` inputs: a synthetic log of `capacity`-point scans along
+    the demo arc at 2 m/s, the 120k-point world it was rendered from as the
+    prior map, and the ground-truth pose and velocity at the first measure
+    group as the initial fix (what a GNSS/INS fix would give)."""
+    from ..io import synthetic
+    log = logdir.make_demo_log(num_frames=num_frames, capacity=capacity)
+    gmap = synthetic.make_world(num_points=120000, extent=80.0, seed=0)
+    k = next(iter(log.measures())).scan_index
+    init_pose = log.gt_poses[k]
+    dt = log.scan_stamps[k + 1] - log.scan_stamps[k]
+    init_velocity = (log.gt_poses[k + 1, :3, 3] - init_pose[:3, 3]) / dt
+    return log, gmap, init_pose, init_velocity.astype(np.float32)
 
 
 def main(argv=None):
@@ -104,12 +129,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     compile_cache.enable()
 
-    init_pose = None
+    init_pose = init_velocity = None
     if args.demo:
-        from ..io import synthetic
-        log = logdir.make_demo_log(num_frames=args.demo_frames)
-        gmap = synthetic.make_world(num_points=120000, extent=80.0, seed=0)
-        init_pose = log.gt_poses[next(iter(log.measures())).scan_index]
+        log, gmap, init_pose, init_velocity = demo_inputs(args.demo_frames)
     else:
         if not (args.log and args.map):
             ap.error("--log and --map, or --demo, required")
@@ -128,7 +150,8 @@ def main(argv=None):
 
     report = run_matching(log, gmap, opts, args.out, init_pose=init_pose,
                           mp_shards=args.mp_shards,
-                          shard_capacity=args.shard_capacity)
+                          shard_capacity=args.shard_capacity,
+                          init_velocity=init_velocity)
     print(json.dumps(report))
 
 

@@ -224,11 +224,14 @@ def nominal_se3(s: EskfState):
     return s.R, s.p
 
 
-def set_pose(s: EskfState, R, t, gravity=None) -> EskfState:
-    """SetX(SE3, grav) (eskf.hpp:135-140)."""
+def set_pose(s: EskfState, R, t, gravity=None, v=None) -> EskfState:
+    """SetX(SE3, grav) (eskf.hpp:135-140); `v` also seeds the world-frame
+    velocity (e.g. from a GNSS or wheel-odometry fix)."""
     out = s._replace(R=jnp.asarray(R, jnp.float32), p=jnp.asarray(t, jnp.float32))
     if gravity is not None:
         out = out._replace(g=jnp.asarray(gravity, jnp.float32))
+    if v is not None:
+        out = out._replace(v=jnp.asarray(v, jnp.float32))
     return out
 
 

@@ -512,8 +512,9 @@ def _p2plane_vox_elect(target: IcpTarget, opts: IcpOptions,
     NEARBY6+self stencil at the CURRENT pose. Returns (plane (N,4), w (N,))
     — the inputs `linearize.p2plane` consumes."""
     rows7 = _p2plane_vox_rows7(target, opts, src, R, t)
-    plane, has = linearize.elect_plane(rows7, src.xyz @ R.T + t)
-    return plane, has * src.mask.astype(jnp.float32)
+    plane, d2 = linearize.elect_nearest(rows7[..., 0:4], rows7[..., 4:7],
+                                        rows7[..., 7] > 0.5, src.xyz @ R.T + t)
+    return plane, (jnp.isfinite(d2) & src.mask).astype(jnp.float32)
 
 
 def _p2line_vox_terms(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t,
@@ -534,11 +535,8 @@ def _p2line_vox_terms(target: IcpTarget, opts: IcpOptions, src: PointCloud, R, t
     slot7, found7 = voxel.lookup_dense(target.dense, opts.dense_dims, keys7)
     rows7 = target.line_packed[slot7]                        # (N, 7, 13)
     valid7 = found7 & (rows7[..., 12] > 0.5)
-    d2 = jnp.sum((rows7[..., 0:3] - qs[:, None, :]) ** 2, axis=-1)
-    d2 = jnp.where(valid7, d2, jnp.inf)
-    pick = jnp.argmin(d2, axis=1)
-    rows = jnp.take_along_axis(rows7, pick[:, None, None], axis=1)[:, 0]
-    w = (jnp.any(valid7, axis=1) & src.mask).astype(jnp.float32)
+    rows, d2 = linearize.elect_nearest(rows7, rows7[..., 0:3], valid7, qs)
+    w = (jnp.isfinite(d2) & src.mask).astype(jnp.float32)
     g = opts.max_line_distance if gate is None else gate
     return linearize.ndt(
         q, qs, rows[:, None, 0:3], rows[:, None, 3:12], w[:, None], R,

@@ -62,30 +62,30 @@ def p2plane(q, plane, w, R, t, gate):
     return _normal_equations(a * w[:, None])
 
 
-def elect_plane(rows, qs):
+def elect_nearest(rows, mu, valid, qs):
     """Nearest-valid-centroid election over S candidate voxel rows.
 
-    rows (N, S, 8) [n(3), d, mu(3), valid], qs (N, 3) world points.
-    Returns (plane (N, 4), has (N,) float 0/1): the row whose centroid is
-    nearest qs among the valid ones (the first on a tie), zero where none
-    is valid."""
-    valid = rows[..., 7] > 0.5
-    d2 = jnp.sum((rows[..., 4:7] - qs[:, None, :]) ** 2, axis=-1)
+    rows (N, S, K), mu (N, S, 3) the candidates' centroids, valid (N, S)
+    bool, qs (N, 3) world points. Returns (row (N, K), d2 (N,)): the row
+    whose centroid is nearest qs among the valid ones (the first on a tie)
+    and its squared distance; zero rows and d2 = inf where none is
+    valid."""
+    d2 = jnp.sum((mu - qs[:, None, :]) ** 2, axis=-1)
     d2 = jnp.where(valid, d2, jnp.inf)
     pick = jnp.argmin(d2, axis=1)
-    plane = jnp.take_along_axis(rows[..., 0:4], pick[:, None, None],
-                                axis=1)[:, 0]
-    has = jnp.any(valid, axis=1)
-    return jnp.where(has[:, None], plane, 0.0), has.astype(jnp.float32)
+    row = jnp.take_along_axis(rows, pick[:, None, None], axis=1)[:, 0]
+    d2 = jnp.min(d2, axis=1)
+    return jnp.where(jnp.isfinite(d2)[:, None], row, 0.0), d2
 
 
 def p2plane_pick(q, rows, w, R, t, gate):
     """Point-to-plane linearization that first elects each point's plane
-    among S candidate rows (see `elect_plane`); arguments as `p2plane`
-    with rows (N, S, 8) in place of plane."""
+    among S candidate rows (see `elect_nearest`); arguments as `p2plane`
+    with rows (N, S, 8) [n(3), d, mu(3), valid] in place of plane."""
     q = q.astype(jnp.float32)
-    plane, has = elect_plane(rows, _rotate(R, q) + t)
-    return p2plane(q, plane, w * has, R, t, gate)
+    plane, d2 = elect_nearest(rows[..., 0:4], rows[..., 4:7],
+                              rows[..., 7] > 0.5, _rotate(R, q) + t)
+    return p2plane(q, plane, w * jnp.isfinite(d2), R, t, gate)
 
 
 def ndt(q, qs, mu, W, valid, R, outlier_th, weighted: bool):

@@ -131,7 +131,7 @@ class ShardedIcpTarget(NamedTuple):
 @functools.partial(jax.jit, static_argnames=("opts",))
 def _build_icp_shards(xyz, mask, lo, hi, kx, opts: icp.IcpOptions):
     # module-level jit: an inner closure re-jitted per call would RECOMPILE
-    # on every re-crop (~20 s each on a remote-compile testbed)
+    # on every re-crop
     return jax.vmap(
         lambda x, m, l, h, k: _build_one_icp_shard(x, m, l, h, k, opts)
     )(xyz, mask, lo, hi, kx)
@@ -235,12 +235,8 @@ def icp_scan_match_sharded(mesh: Mesh, st: ShardedIcpTarget,
             slot7, found7 = voxel.lookup_dense(tgt.dense, opts.dense_dims, keys7)
             rows7 = tgt.packed[slot7]                           # (n, 7, 8)
             valid7 = found7 & (rows7[..., 7] > 0.5)
-            d2 = jnp.sum((rows7[..., 4:7] - qs[:, None, :]) ** 2, axis=-1)
-            d2 = jnp.where(valid7, d2, jnp.inf)
-            pick = jnp.argmin(d2, axis=1)                       # (n,)
-            d2_loc = jnp.min(d2, axis=1)                        # (n,)
-            plane = jnp.take_along_axis(
-                rows7[..., 0:4], pick[:, None, None], axis=1)[:, 0]
+            plane, d2_loc = linearize.elect_nearest(
+                rows7[..., 0:4], rows7[..., 4:7], valid7, qs)   # (n,4), (n,)
             # global winner: min distance, then lowest shard index
             d2_min = jax.lax.pmin(d2_loc, "mp")
             cand = jnp.where(

@@ -148,8 +148,9 @@ class LocSharded:
         self.poses: list[np.ndarray] = []
         self.health = health_mod.TrackingHealth()
 
-    def set_init_pose(self, R, t):
-        """SetInitPose semantics (loc.cpp:171-185) on the sharded state."""
+    def set_init_pose(self, R, t, v=None):
+        """SetInitPose semantics (loc.cpp:171-185) on the sharded state;
+        `v` as in `loc.set_init_pose`."""
         R = jnp.asarray(R, jnp.float32)
         t = jnp.asarray(t, jnp.float32)
         s = self.state
@@ -157,7 +158,7 @@ class LocSharded:
         R_imu, t_imu = lie.se3_compose(R, t, Ril_inv, til_inv)
         self.state = s._replace(
             R=R, t=t, last_R=R, last_t=t,
-            eskf=eskf_mod.set_pose(s.eskf, R_imu, t_imu),
+            eskf=eskf_mod.set_pose(s.eskf, R_imu, t_imu, v=v),
             initialized=jnp.bool_(True))
         self.health.reset()
         self._recrop()

@@ -38,6 +38,20 @@ def test_fully_masked_input_gives_empty_system():
     assert not np.any(np.asarray(H)) and not np.any(np.asarray(b))
 
 
+def test_elect_nearest_takes_first_nearest_valid_row():
+    """Ties go to the first row, invalid rows never win however near, and a
+    point with no valid row gets a zero row and d2 = inf."""
+    rows = np.arange(2 * 3 * 2, dtype=np.float32).reshape(2, 3, 2)
+    mu = np.zeros((2, 3, 3), np.float32)
+    mu[0, :, 2] = [1.0, 1.0, 0.5]
+    valid = np.array([[True, True, False], [False, False, False]])
+    row, d2 = linearize.elect_nearest(rows, mu, valid,
+                                      np.zeros((2, 3), np.float32))
+    np.testing.assert_array_equal(np.asarray(row[0]), rows[0, 0])
+    assert float(d2[0]) == 1.0
+    assert not np.any(np.asarray(row[1])) and np.isinf(float(d2[1]))
+
+
 @pytest.fixture
 def _restore_cache_config():
     saved = (jax.config.jax_compilation_cache_dir,

@@ -23,9 +23,10 @@ _WORKER = textwrap.dedent("""
     import os, sys
     import jax
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
 
     from loc_lib_tpu.parallel import multihost
+    from loc_lib_tpu.utils import compile_cache
+    compile_cache.enable()
 
     multihost.init(local_device_count=2)   # picks up JAX_* env vars
     assert jax.process_count() == 2, jax.process_count()

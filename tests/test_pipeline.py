@@ -98,6 +98,23 @@ def test_loc_localization():
         assert err < 0.3, f"frame {i}: localization error {err:.3f} m"
 
 
+def test_loc_demo_tracks_from_seeded_velocity(tmp_path):
+    """The matching demo moves 0.2 m per scan. Seeded with the fix's
+    velocity, Loc tracks it. Started at rest, the predicted pose trails
+    past the 0.1 m plane gate and Loc does not catch up."""
+    from loc_lib_tpu.apps import matching
+
+    log, gmap, init, v0 = matching.demo_inputs(8, capacity=2048)
+    np.testing.assert_allclose(np.linalg.norm(v0), 2.0, rtol=1e-2)
+    opts = loc.LocOptions(scan_capacity=2048)
+    ate = {name: matching.run_matching(
+        log, gmap, opts, str(tmp_path / name), init_pose=init,
+        init_velocity=v)["ate_rmse_m"]
+        for name, v in (("seeded", v0), ("at_rest", None))}
+    assert ate["seeded"] < 0.02, ate
+    assert ate["at_rest"] > 0.1, ate
+
+
 def test_lio_with_eskf_imu():
     """LIO + ESKF measure groups (Lio::AddMeasure path) stays on track."""
     opts = lio.LioOptions(
